@@ -30,13 +30,13 @@ def main() -> None:
     import jax.numpy as jnp
     import numpy as np
 
-    from multimodal_rare_disease_tpu.config import resolve_config
-    from multimodal_rare_disease_tpu.parallel.mesh import (
+    from multimodal_rare_disease.config import resolve_config
+    from multimodal_rare_disease.parallel.mesh import (
         batch_sharding,
         create_mesh,
     )
-    from multimodal_rare_disease_tpu.train import Trainer
-    from multimodal_rare_disease_tpu.train.pipeline import STAGING_SIZE
+    from multimodal_rare_disease.train import Trainer
+    from multimodal_rare_disease.train.pipeline import STAGING_SIZE
 
     n_devices = len(jax.devices())
     cfg = resolve_config("multimodal", {

@@ -1,6 +1,6 @@
 import json
 
-from multimodal_rare_disease_tpu.config import (
+from multimodal_rare_disease.config import (
     SYNDROME_NAMES,
     PREFIX_TO_SYNDROME,
     Config,
@@ -71,13 +71,34 @@ def test_config_immutable():
         cfg.seed = 1
 
 
-def test_compilation_cache_default(tmp_path, monkeypatch):
+def test_compilation_cache_default(monkeypatch):
     """CLIs point JAX at a persistent compilation cache (fresh-process
     cold starts would otherwise re-pay minutes of XLA compile per CLI
-    invocation); MRD_NO_COMPILE_CACHE=1 opts out."""
+    invocation); without JAX_COMPILATION_CACHE_DIR it is <repo>/.jax_cache,
+    a path .gitignore lists."""
     import jax
 
-    from multimodal_rare_disease_tpu.cli._common import (
+    from multimodal_rare_disease.cli._common import (
+        enable_compilation_cache,
+    )
+    from multimodal_rare_disease.config import BASE_DIR
+
+    prev = jax.config.jax_compilation_cache_dir
+    try:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        enable_compilation_cache()
+        assert jax.config.jax_compilation_cache_dir == str(
+            BASE_DIR / ".jax_cache")
+        assert ".jax_cache/" in (BASE_DIR / ".gitignore").read_text()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
+
+
+def test_compilation_cache_from_env(tmp_path, monkeypatch):
+    """An explicit JAX_COMPILATION_CACHE_DIR wins over the default."""
+    import jax
+
+    from multimodal_rare_disease.cli._common import (
         enable_compilation_cache,
     )
 
@@ -85,25 +106,30 @@ def test_compilation_cache_default(tmp_path, monkeypatch):
     try:
         target = str(tmp_path / "cache")
         monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", target)
-        monkeypatch.delenv("MRD_NO_COMPILE_CACHE", raising=False)
-        enable_compilation_cache()
-        assert jax.config.jax_compilation_cache_dir == target
-
-        # The kill switch must leave the config untouched.
-        monkeypatch.setenv("MRD_NO_COMPILE_CACHE", "1")
-        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR",
-                           str(tmp_path / "other"))
         enable_compilation_cache()
         assert jax.config.jax_compilation_cache_dir == target
     finally:
         jax.config.update("jax_compilation_cache_dir", prev)
 
 
+def test_config_from_dict_ignores_removed_fields():
+    """Checkpoint metadata written before the fused-kernel switches and
+    the CPU-fallback knob were removed must still load."""
+    from multimodal_rare_disease.config import Config, resolve_config
+
+    d = resolve_config("multimodal").to_dict()
+    d["text_encoder"]["fused_ffn"] = True
+    d["text_encoder"]["fused_attn_out"] = False
+    d["mesh"]["allow_cpu_fallback"] = True
+    cfg = Config.from_dict(d)
+    assert cfg == resolve_config("multimodal")
+
+
 def test_from_scratch_fullsize_preset_encodes_measured_recipe():
-    """The round-4 scale-cliff recipe (docs/TRAINING.md, artifacts/round4/
-    text_cliff_lr.json: full 12x3072 stack descends only at lr=1e-5,
-    needs >=150 epochs) must be one --preset flag away."""
-    from multimodal_rare_disease_tpu.config import resolve_config
+    """The scale-cliff recipe (docs/TRAINING.md: full 12x3072 stack
+    descends only at lr=1e-5, needs >=150 epochs) must be one --preset
+    flag away."""
+    from multimodal_rare_disease.config import resolve_config
 
     cfg = resolve_config("from_scratch_fullsize")
     # full-size tower: BERT-base depth/width, NOT the 6-layer shrink
@@ -122,8 +148,8 @@ def test_cli_preset_choices_track_registry():
     (round-5 regression)."""
     import argparse
 
-    from multimodal_rare_disease_tpu.cli._common import add_config_args
-    from multimodal_rare_disease_tpu.config import PRESETS
+    from multimodal_rare_disease.cli._common import add_config_args
+    from multimodal_rare_disease.config import PRESETS
 
     parser = argparse.ArgumentParser()
     add_config_args(parser)

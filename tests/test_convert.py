@@ -28,8 +28,8 @@ def _small_hf_config():
 def test_hf_bert_conversion_numerics():
     from transformers import BertModel
 
-    from multimodal_rare_disease_tpu.models.bert import BertEncoder
-    from multimodal_rare_disease_tpu.models.convert import convert_hf_bert
+    from multimodal_rare_disease.models.bert import BertEncoder
+    from multimodal_rare_disease.models.convert import convert_hf_bert
 
     hf_cfg = _small_hf_config()
     torch.manual_seed(0)
@@ -61,10 +61,10 @@ def test_resnet_conversion_structure_and_numerics():
     stem conv+bn numerics against torch ops."""
     import torch.nn.functional as F
 
-    from multimodal_rare_disease_tpu.models.convert import (
+    from multimodal_rare_disease.models.convert import (
         convert_torchvision_resnet50,
     )
-    from multimodal_rare_disease_tpu.models.resnet import ResNet50Encoder
+    from multimodal_rare_disease.models.resnet import ResNet50Encoder
 
     torch.manual_seed(0)
     sd = {}
@@ -120,7 +120,7 @@ def test_resnet_conversion_structure_and_numerics():
                          sd["bn1.weight"], sd["bn1.bias"], eps=1e-5)
         t = torch.relu(t).numpy().transpose(0, 2, 3, 1)
 
-    import flax.linen as fnn
+    from multimodal_rare_disease import nn as fnn
 
     conv_out = fnn.Conv(64, (7, 7), strides=(2, 2),
                         padding=[(3, 3), (3, 3)], use_bias=False).apply(

@@ -108,10 +108,10 @@ def _randomized_eval_resnet(seed=0):
 
 
 def test_resnet50_full_forward_parity():
-    from multimodal_rare_disease_tpu.models.convert import (
+    from multimodal_rare_disease.models.convert import (
         convert_torchvision_resnet50,
     )
-    from multimodal_rare_disease_tpu.models.resnet import ResNet50Encoder
+    from multimodal_rare_disease.models.resnet import ResNet50Encoder
 
     m = _randomized_eval_resnet()
     sd = m.state_dict()
@@ -139,8 +139,8 @@ def test_resnet50_full_forward_parity():
 def test_hf_bert_fullsize_parity():
     from transformers import BertConfig, BertModel
 
-    from multimodal_rare_disease_tpu.models.bert import BertEncoder
-    from multimodal_rare_disease_tpu.models.convert import convert_hf_bert
+    from multimodal_rare_disease.models.bert import BertEncoder
+    from multimodal_rare_disease.models.convert import convert_hf_bert
 
     hf_cfg = BertConfig(
         vocab_size=28996, hidden_size=768, num_hidden_layers=12,
@@ -187,20 +187,20 @@ def test_converted_checkpoint_end_to_end_golden(tmp_path):
         pytest.skip("reference corpus not available")
     from transformers import BertConfig, BertModel
 
-    from multimodal_rare_disease_tpu.config import resolve_config
-    from multimodal_rare_disease_tpu.data.clinical_text import (
+    from multimodal_rare_disease.config import resolve_config
+    from multimodal_rare_disease.data.clinical_text import (
         load_clinical_descriptions,
     )
-    from multimodal_rare_disease_tpu.data.tokenizer import get_tokenizer
-    from multimodal_rare_disease_tpu.inference import load_predictor
-    from multimodal_rare_disease_tpu.models import create_model
-    from multimodal_rare_disease_tpu.models.convert import (
+    from multimodal_rare_disease.data.tokenizer import get_tokenizer
+    from multimodal_rare_disease.inference import load_predictor
+    from multimodal_rare_disease.models import create_model
+    from multimodal_rare_disease.models.convert import (
         convert_backbone_into,
         convert_bert_into,
         convert_hf_bert,
         convert_torchvision_resnet50,
     )
-    from multimodal_rare_disease_tpu.utils.checkpoint import save_checkpoint
+    from multimodal_rare_disease.utils.checkpoint import save_checkpoint
 
     cfg = resolve_config(overrides={
         "training.compute_dtype": "float32",
@@ -346,10 +346,10 @@ class _TorchEffNetB0(torch.nn.Module):
 
 
 def test_efficientnet_b0_full_forward_parity():
-    from multimodal_rare_disease_tpu.models.convert import (
+    from multimodal_rare_disease.models.convert import (
         convert_torchvision_efficientnet_b0,
     )
-    from multimodal_rare_disease_tpu.models.efficientnet import (
+    from multimodal_rare_disease.models.efficientnet import (
         EfficientNetB0Encoder,
     )
 

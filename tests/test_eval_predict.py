@@ -8,10 +8,10 @@ import pytest
 
 pytestmark = pytest.mark.slow  # one-epoch trainings: minutes on CPU
 
-from multimodal_rare_disease_tpu.evaluation import Evaluator, compare_models
-from multimodal_rare_disease_tpu.inference import load_predictor
-from multimodal_rare_disease_tpu.train import Trainer
-from multimodal_rare_disease_tpu.train.pipeline import DataPipeline
+from multimodal_rare_disease.evaluation import Evaluator, compare_models
+from multimodal_rare_disease.inference import load_predictor
+from multimodal_rare_disease.train import Trainer
+from multimodal_rare_disease.train.pipeline import DataPipeline
 
 from tests.test_trainer import REF_IMAGES, small_cfg
 
@@ -118,13 +118,13 @@ def test_predictor_packed_path_engages_and_matches(monkeypatch):
 
     import jax.numpy as jnp
 
-    from multimodal_rare_disease_tpu.config import resolve_config
-    from multimodal_rare_disease_tpu.inference import packing as packing_mod
-    from multimodal_rare_disease_tpu.inference.predictor import (
+    from multimodal_rare_disease.config import resolve_config
+    from multimodal_rare_disease.inference import packing as packing_mod
+    from multimodal_rare_disease.inference.predictor import (
         MultimodalPredictor,
     )
-    from multimodal_rare_disease_tpu.models import create_model
-    from multimodal_rare_disease_tpu.ops.preprocess import eval_preprocess
+    from multimodal_rare_disease.models import create_model
+    from multimodal_rare_disease.ops.preprocess import eval_preprocess
 
     desc_path = Path("/root/reference/data/"
                      "syndrome_clinical_descriptions.json")

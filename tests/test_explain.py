@@ -5,18 +5,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multimodal_rare_disease_tpu.data.tokenizer import (
+from multimodal_rare_disease.data.tokenizer import (
     BertWordPieceTokenizer,
     build_wordpiece_vocab,
 )
-from multimodal_rare_disease_tpu.explain import (
+from multimodal_rare_disease.explain import (
     GradCAM,
     cross_modal_attention_summary,
     gradcam_heatmap,
     overlay_heatmap,
     text_token_attention,
 )
-from multimodal_rare_disease_tpu.models import create_model
+from multimodal_rare_disease.models import create_model
 
 from tests.test_trainer import small_cfg
 
@@ -109,7 +109,7 @@ def test_cross_modal_summary(tmp_path):
     summary = cross_modal_attention_summary(out["attention_info"])
     assert summary["image_to_text"].shape[0] == cfg.fusion.num_attention_heads
 
-    from multimodal_rare_disease_tpu.explain.attention import (
+    from multimodal_rare_disease.explain.attention import (
         plot_cross_modal_attention,
         plot_text_attention,
     )

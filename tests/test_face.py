@@ -3,7 +3,7 @@ the end-to-end `data.use_face_detection` wiring.
 
 Parity target: the reference's optional MTCNN FaceDetector
 (`src/image_dataset_loader.py:27-77`) — there the capability activates
-by installing facenet-pytorch; here the nets ship in flax with a
+by installing facenet-pytorch; here the nets ship in-repo with a
 facenet state_dict converter, plus a weights-free heuristic fallback.
 """
 
@@ -13,7 +13,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from multimodal_rare_disease_tpu.models.mtcnn import (
+from multimodal_rare_disease.models.mtcnn import (
     MTCNNDetector,
     ONet,
     PNet,
@@ -260,8 +260,8 @@ def test_use_face_detection_changes_crops_end_to_end(tmp_path):
     decoded corpus (face-centered crops vs full-frame resize)."""
     from PIL import Image
 
-    from multimodal_rare_disease_tpu.config import resolve_config
-    from multimodal_rare_disease_tpu.data.images import (
+    from multimodal_rare_disease.config import resolve_config
+    from multimodal_rare_disease.data.images import (
         configure_face_detection, load_image_uint8, set_face_detector)
 
     p = tmp_path / "SYN_KS_001.png"

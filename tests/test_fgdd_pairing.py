@@ -5,8 +5,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from multimodal_rare_disease_tpu.config import resolve_config
-from multimodal_rare_disease_tpu.train.text_pipeline import (
+from multimodal_rare_disease.config import resolve_config
+from multimodal_rare_disease.train.text_pipeline import (
     fgdd_multimodal_pipeline,
 )
 
@@ -72,7 +72,7 @@ def test_pairing_cycles_texts_with_image_labels(pipe):
 
 @pytest.mark.slow
 def test_fgdd_multimodal_smoke_train(pipe, tmp_path):
-    from multimodal_rare_disease_tpu.train import Trainer
+    from multimodal_rare_disease.train import Trainer
 
     cfg = _cfg(**{"training.num_epochs": 1})
     trainer = Trainer(cfg, mode="multimodal", pipeline=pipe,

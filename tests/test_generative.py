@@ -11,7 +11,7 @@ import pytest
 
 pytestmark = pytest.mark.slow  # 150-epoch VAE training: ~2 min on 1 vCPU
 
-from multimodal_rare_disease_tpu.data.generative import (
+from multimodal_rare_disease.data.generative import (
     ConvVAE,
     VAEImageGenerator,
     train_vae,
@@ -58,7 +58,7 @@ def test_vae_generator_api_and_class_conditioning(trained, tmp_path):
     written = gen.generate_dataset(tmp_path, num_per_class=1)
     assert sum(len(v) for v in written.values()) == 10
     # corpus layout understood by the loaders
-    from multimodal_rare_disease_tpu.data.images import scan_image_corpus
+    from multimodal_rare_disease.data.images import scan_image_corpus
 
     samples = list(scan_image_corpus(tmp_path))
     assert len(samples) == 10

@@ -8,43 +8,27 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from multimodal_rare_disease_tpu.config import resolve_config
-from multimodal_rare_disease_tpu.models import create_model
-from multimodal_rare_disease_tpu.ops.preprocess import (
+from chip_smoke import GOLDEN_ROW0, golden_probs
+from multimodal_rare_disease.config import resolve_config
+from multimodal_rare_disease.ops.preprocess import (
     eval_preprocess,
     train_preprocess,
 )
 
-from tests.test_trainer import small_cfg
-
 
 def test_golden_multimodal_forward():
-    cfg = small_cfg()
-    model = create_model(cfg, mode="multimodal", dtype=jnp.float32)
-    T = cfg.data.max_text_length
-    rng = np.random.default_rng(0)
-    images = jnp.asarray(rng.integers(0, 256, (2, 64, 64, 3)) / 255.0,
-                         jnp.float32)
-    ids = jnp.asarray(rng.integers(0, 100, (2, T)), jnp.int32)
-    mask = jnp.ones((2, T), jnp.int32)
-    variables = model.init(jax.random.key(42), images, ids, mask)
-    out = model.apply(variables, images, ids, mask)
-    probs = np.asarray(out["probs"])
-
+    # The golden model, inputs and pinned row live in chip_smoke.py so
+    # the GPU parity check compares against the same numbers.
     # pinned 2026-08-16; REPINNED 2026-08-17 after the intentional
-    # HF-style BERT init change (models/bert.py:29-35, commit dafede3)
-    # shifted model.init numerics. Rule: any commit that intentionally
-    # changes numerics must repin goldens in the same commit.
-    # atol widened to 2e-3: CPU XLA fusion differs slightly (~4e-4)
-    # between execution contexts; real numerics changes shift ~1e-2.
-    golden_row0 = np.array(
-        [0.10901581, 0.04983993, 0.04176393, 0.12084029, 0.11914441,
-         0.08468267, 0.17986728, 0.14346622, 0.09551004, 0.05586931],
-        np.float32)
-    if not np.allclose(probs[0], golden_row0, atol=2e-3):
+    # HF-style BERT init change (models/bert.py). Rule: any commit that
+    # intentionally changes numerics must repin goldens in the same
+    # commit. atol 2e-3: CPU XLA fusion differs slightly (~4e-4) between
+    # execution contexts; real numerics changes shift ~1e-2.
+    probs0 = golden_probs()
+    if not np.allclose(probs0, GOLDEN_ROW0, atol=2e-3):
         raise AssertionError(
-            f"golden drift:\n got {probs[0].tolist()}\n want "
-            f"{golden_row0.tolist()}")
+            f"golden drift:\n got {probs0.tolist()}\n want "
+            f"{GOLDEN_ROW0.tolist()}")
 
 
 def test_golden_eval_preprocess():
@@ -52,7 +36,7 @@ def test_golden_eval_preprocess():
     u8 = jnp.asarray(
         np.random.default_rng(1).integers(0, 256, (1, 256, 256, 3),
                                           dtype=np.uint8))
-    out = np.asarray(eval_preprocess(u8, cfg, use_pallas=False))
+    out = np.asarray(eval_preprocess(u8, cfg))
     # pinned statistics of the deterministic resize_crop+normalize
     # (repinned 2026-08-16 when eval geometry became PIL-exact
     # Resize(234)+CenterCrop(224) with antialiasing)

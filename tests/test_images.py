@@ -3,8 +3,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from multimodal_rare_disease_tpu.config import resolve_config, find_image_dir
-from multimodal_rare_disease_tpu.data.images import (
+from multimodal_rare_disease.config import resolve_config, find_image_dir
+from multimodal_rare_disease.data.images import (
     ImageSample,
     WeightedSampler,
     class_counts,
@@ -99,7 +99,7 @@ def test_leakage_aware_split_no_base_overlap():
 
 def test_weighted_sampler_balances():
     samples = _fake_samples(per_class=(90, 10), augs=0)
-    from multimodal_rare_disease_tpu.data.images import sample_weights
+    from multimodal_rare_disease.data.images import sample_weights
 
     w = sample_weights(samples, num_classes=2)
     sampler = WeightedSampler(w, num_samples=20000,
@@ -113,7 +113,7 @@ def test_weighted_sampler_balances():
 def test_corrupt_image_placeholder(tmp_path):
     bad = tmp_path / "bad.png"
     bad.write_bytes(b"not a png")
-    from multimodal_rare_disease_tpu.data.images import load_image_uint8
+    from multimodal_rare_disease.data.images import load_image_uint8
 
     arr = load_image_uint8(str(bad), size=32)
     assert arr.shape == (32, 32, 3)
@@ -125,7 +125,7 @@ def test_face_detector_hook(tmp_path):
     registered detector crops with 20% margin; fallback is plain resize."""
     from PIL import Image
 
-    from multimodal_rare_disease_tpu.data.images import (
+    from multimodal_rare_disease.data.images import (
         load_image_uint8,
         set_face_detector,
     )

@@ -12,17 +12,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multimodal_rare_disease_tpu.config import resolve_config
-from multimodal_rare_disease_tpu.data.tokenizer import get_tokenizer
-from multimodal_rare_disease_tpu.inference.predictor import (
+from multimodal_rare_disease.config import resolve_config
+from multimodal_rare_disease.data.tokenizer import get_tokenizer
+from multimodal_rare_disease.inference.predictor import (
     MultimodalPredictor,
 )
-from multimodal_rare_disease_tpu.models import create_model
+from multimodal_rare_disease.models import create_model
 
 pytestmark = pytest.mark.smoke
 
-SHORT_TEXT = ("Patient presents with distinctive facial features, "
-              "developmental delay, and a happy demeanor.")
+# Tokenises to 13 tokens with the vocabulary built from the built-in
+# syndrome descriptions (the tokenizer used when no corpus is present).
+SHORT_TEXT = "Facial dysmorphism assessment reveals: long face, hooded eyelids."
 
 
 def _make_predictor(length_bucketing, attend_over_tokens=False):

@@ -1,8 +1,9 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from multimodal_rare_disease_tpu.parallel import (
+from multimodal_rare_disease.parallel import (
     batch_sharding,
     create_mesh,
     replicated_sharding,
@@ -44,3 +45,27 @@ def test_replicated_matmul_sharded_batch(mesh8):
 
     out = f(xs, ws)
     np.testing.assert_allclose(np.asarray(out), x @ np.ones((4, 4)), rtol=1e-5)
+
+
+class _FakeDevice:
+    def __init__(self, platform, stats):
+        self.platform = platform
+        self.device_kind = f"fake {platform}"
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+def test_device_memory_limit_needs_a_reported_limit():
+    """The resident-corpus guard reads the device's bytes_limit; an
+    accelerator that reports none is an error, not a guessed size."""
+    from multimodal_rare_disease.train.trainer import (
+        device_memory_limit_bytes,
+    )
+
+    assert device_memory_limit_bytes(
+        _FakeDevice("gpu", {"bytes_limit": 60e9})) == 60e9
+    assert device_memory_limit_bytes(_FakeDevice("cpu", None)) == 1e15
+    with pytest.raises(RuntimeError, match="bytes_limit"):
+        device_memory_limit_bytes(_FakeDevice("gpu", {}))

@@ -3,8 +3,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from multimodal_rare_disease_tpu.train import Trainer
-from multimodal_rare_disease_tpu.train.pipeline import DataPipeline
+from multimodal_rare_disease.train import Trainer
+from multimodal_rare_disease.train.pipeline import DataPipeline
 
 from tests.test_trainer import REF_IMAGES, small_cfg
 

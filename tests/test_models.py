@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multimodal_rare_disease_tpu.config import resolve_config
-from multimodal_rare_disease_tpu.models import (
+from multimodal_rare_disease.config import resolve_config
+from multimodal_rare_disease.models import (
     AttentionFusion,
     ClassificationHead,
     ConcatenationFusion,
@@ -192,7 +192,7 @@ def test_gradcam_tail_vjp():
 def test_bert_cls_only_final_matches_full_forward():
     """The inference fast path (last layer computes only the CLS position)
     must be numerically identical to slicing the full forward at [:, 0]."""
-    from multimodal_rare_disease_tpu.models.bert import BertEncoder
+    from multimodal_rare_disease.models.bert import BertEncoder
 
     enc = BertEncoder(vocab_size=128, hidden_size=32, num_layers=3,
                       num_heads=4, intermediate_size=64,
@@ -213,11 +213,10 @@ def test_bert_cls_only_final_matches_full_forward():
 
 def test_bert_flat_residual_stream_equals_classic():
     """flat_residual keeps the residual stream [B*T, H] between layers
-    (unambiguous 2-D matmuls for XLA layout assignment — see
-    artifacts/PERF_R3.md lever 3). Pure reshapes: must be bit-exact vs
+    (unambiguous 2-D matmuls for XLA layout assignment). Pure reshapes: must be bit-exact vs
     the classic [B, T, H] stream, for both cls_only_final settings, and
     the viz path must still produce 3-D hidden states/attentions."""
-    from multimodal_rare_disease_tpu.models.bert import BertEncoder
+    from multimodal_rare_disease.models.bert import BertEncoder
 
     kw = dict(vocab_size=128, hidden_size=32, num_layers=3, num_heads=4,
               intermediate_size=64, max_position_embeddings=64, dropout=0.0,
@@ -248,7 +247,7 @@ def test_bert_flat_residual_stream_equals_classic():
 
 def test_stem_conv_s2d_equals_canonical():
     """Inference space-to-depth stem must match the 7x7/s2 conv exactly."""
-    from multimodal_rare_disease_tpu.models.resnet import _StemConv
+    from multimodal_rare_disease.models.resnet import _StemConv
 
     m = _StemConv()
     x = jnp.asarray(np.random.default_rng(0).normal(size=(2, 64, 64, 3)),
@@ -262,3 +261,30 @@ def test_stem_conv_s2d_equals_canonical():
     np.testing.assert_allclose(np.asarray(m.apply(v, xo, s2d=True)),
                                np.asarray(m.apply(v, xo, s2d=False)),
                                atol=1e-6)
+
+
+def test_attention_lane_padding_is_exact():
+    """T=96 inference pads the attention core to 128 internally; the
+    result must be bit-identical to tokenizer-level padding to 128
+    (the previous serving behavior for these texts)."""
+    from multimodal_rare_disease.models.bert import BertEncoder
+
+    B, H, heads = 3, 128, 2
+    rng = np.random.default_rng(3)
+    enc = BertEncoder(vocab_size=60, hidden_size=H, num_layers=2,
+                      num_heads=heads, intermediate_size=256,
+                      max_position_embeddings=256, dtype=jnp.float32)
+    T = 96
+    ids = np.asarray(rng.integers(1, 60, (B, T)), np.int32)
+    lens = np.array([50, 96, 77])
+    mask = (np.arange(T)[None] < lens[:, None]).astype(np.int32)
+    v = enc.init(jax.random.key(0), jnp.asarray(ids), jnp.asarray(mask))
+    a = np.asarray(enc.apply(v, jnp.asarray(ids), jnp.asarray(mask))["cls"])
+
+    ids128 = np.zeros((B, 128), np.int32)
+    ids128[:, :T] = ids
+    mask128 = np.zeros((B, 128), np.int32)
+    mask128[:, :T] = mask
+    b = np.asarray(enc.apply(v, jnp.asarray(ids128),
+                             jnp.asarray(mask128))["cls"])
+    np.testing.assert_array_equal(a, b)

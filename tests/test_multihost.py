@@ -3,9 +3,9 @@
 Spawns 2 REAL processes, each owning 4 virtual CPU devices, joined by
 `jax.distributed.initialize` into one 8-device global mesh; the train
 step's gradient reduction crosses the process boundary through
-XLA/Gloo collectives. This is the TPU-pod path (ICI within a slice,
-DCN across hosts) exercised end-to-end without TPU hardware — the
-reference has no multi-device support of any kind (SURVEY.md §2.3).
+XLA/Gloo collectives. This is the multi-host path exercised end-to-end
+without accelerator hardware — the reference has no multi-device
+support of any kind (SURVEY.md §2.3).
 """
 
 import json
@@ -68,8 +68,8 @@ def test_two_process_data_parallel_step():
 
 def test_two_process_dp_x_tp_step():
     """data axis spans the processes, 'model' (tensor parallel) shards
-    the BERT tower within each process — the pod topology (DCN between
-    hosts on 'data', ICI within a host on 'model')."""
+    the BERT tower within each process (hosts on 'data', the devices of
+    one host on 'model')."""
     r = _launch(nproc=2, model_axis=2)
     assert all(x["mesh"] == {"data": 4, "model": 2} for x in r)
     losses = [x["loss"] for x in r]

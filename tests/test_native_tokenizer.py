@@ -5,16 +5,16 @@ import time
 import numpy as np
 import pytest
 
-from multimodal_rare_disease_tpu.config import resolve_config
-from multimodal_rare_disease_tpu.data.clinical_text import (
+from multimodal_rare_disease.config import resolve_config
+from multimodal_rare_disease.data.clinical_text import (
     ClinicalTextAugmenter,
     load_clinical_descriptions,
 )
-from multimodal_rare_disease_tpu.data.tokenizer import (
+from multimodal_rare_disease.data.tokenizer import (
     BertWordPieceTokenizer,
     build_wordpiece_vocab,
 )
-from multimodal_rare_disease_tpu.native import wordpiece_lib
+from multimodal_rare_disease.native import wordpiece_lib
 
 
 @pytest.fixture(scope="module")

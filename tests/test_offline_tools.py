@@ -5,15 +5,15 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from multimodal_rare_disease_tpu.config import SYNDROME_NAMES
-from multimodal_rare_disease_tpu.data.images import scan_image_corpus
-from multimodal_rare_disease_tpu.data.offline_augment import (
+from multimodal_rare_disease.config import SYNDROME_NAMES
+from multimodal_rare_disease.data.images import scan_image_corpus
+from multimodal_rare_disease.data.offline_augment import (
     AUGMENTATION_TYPES,
     augment_image,
     generate_augmented_dataset,
     reorganize_images,
 )
-from multimodal_rare_disease_tpu.data.synthetic import (
+from multimodal_rare_disease.data.synthetic import (
     SyntheticImageGenerator,
     generate_synthetic_for_training,
 )
@@ -91,10 +91,10 @@ def test_cli_arg_errors():
     """Fast argparse error-path coverage (no jax compute)."""
     import pytest
 
-    from multimodal_rare_disease_tpu.cli import stats as stats_cli
+    from multimodal_rare_disease.cli import stats as stats_cli
 
     with pytest.raises(SystemExit):
-        from multimodal_rare_disease_tpu.cli.train import main as train_main
+        from multimodal_rare_disease.cli.train import main as train_main
 
         train_main(["--mode", "bogus"])
     rc = stats_cli.main(["--results-dir", "/nonexistent/place"])

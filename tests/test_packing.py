@@ -5,8 +5,8 @@ Cross-document attention scores carry -1e9 bias whose softmax
 contribution underflows to exactly 0, and position ids restart per
 document — per-document outputs equal the unpacked forward up to f32
 reduction-tree order (~2e-7, the same noise as changing the padding
-bucket; asserted at atol 1e-5 here). The compiled bf16 graph is
-covered by the `-m tpu` tier."""
+bucket; asserted at atol 1e-5 here). The compiled bf16 graph on the
+GPU is checked by chip_smoke.py's predict phase."""
 
 import numpy as np
 import pytest
@@ -14,7 +14,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from multimodal_rare_disease_tpu.inference.packing import (
+from multimodal_rare_disease.inference.packing import (
     PackedBatch,
     pack_texts,
     packing_wins,
@@ -66,7 +66,7 @@ def test_packing_wins_heuristic():
 
 
 def test_packed_bert_bit_exact_vs_unpacked():
-    from multimodal_rare_disease_tpu.models.bert import BertEncoder
+    from multimodal_rare_disease.models.bert import BertEncoder
 
     rng = np.random.default_rng(2)
     n, tmax = 11, 40
@@ -92,7 +92,7 @@ def test_packed_bert_bit_exact_vs_unpacked():
 
 def test_packed_bert_bit_exact_without_cls_only():
     """The non-cls_only packed path (gather at query positions)."""
-    from multimodal_rare_disease_tpu.models.bert import BertEncoder
+    from multimodal_rare_disease.models.bert import BertEncoder
 
     rng = np.random.default_rng(3)
     ids, mask, _ = _toy_batch(rng, 7)
@@ -115,8 +115,8 @@ def test_packed_bert_bit_exact_without_cls_only():
 
 
 def test_packed_classifier_matches_unpacked():
-    from multimodal_rare_disease_tpu.config import resolve_config
-    from multimodal_rare_disease_tpu.models import create_model
+    from multimodal_rare_disease.config import resolve_config
+    from multimodal_rare_disease.models import create_model
 
     rng = np.random.default_rng(4)
     cfg = resolve_config("default", {

@@ -3,8 +3,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from multimodal_rare_disease_tpu.config import resolve_config
-from multimodal_rare_disease_tpu.data.parsers import (
+from multimodal_rare_disease.config import resolve_config
+from multimodal_rare_disease.data.parsers import (
     HPOParser,
     OrphadataParser,
     create_syndrome_text_mapping,

@@ -14,13 +14,13 @@ import pytest
 
 from jax.sharding import PartitionSpec as P
 
-from multimodal_rare_disease_tpu.config import resolve_config
-from multimodal_rare_disease_tpu.data.tokenizer import get_tokenizer
-from multimodal_rare_disease_tpu.inference.predictor import (
+from multimodal_rare_disease.config import resolve_config
+from multimodal_rare_disease.data.tokenizer import get_tokenizer
+from multimodal_rare_disease.inference.predictor import (
     MultimodalPredictor,
 )
-from multimodal_rare_disease_tpu.models import create_model
-from multimodal_rare_disease_tpu.parallel.mesh import create_mesh
+from multimodal_rare_disease.models import create_model
+from multimodal_rare_disease.parallel.mesh import create_mesh
 
 TEXTS = [
     "short stature and developmental delay with cardiac findings",

@@ -12,12 +12,8 @@
     post-LN tree plus the one `final_ln` module (so post-LN checkpoints
     are loadable into a pre-LN model modulo that single extra LN, and
     the flag being off cannot perturb goldens).
-  * Config threading: `text_encoder.pre_layernorm` reaches the flax
+  * Config threading: `text_encoder.pre_layernorm` reaches the
     module through `create_text_encoder`.
-
-Interpret-mode parity for the folded-LN fused FFN kernel (the
-`pre_gamma` path of ops/pallas/ffn.py, previously covered only by the
-on-TPU tier) lives in tests/test_ffn_kernel.py.
 """
 
 import numpy as np
@@ -26,7 +22,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from multimodal_rare_disease_tpu.models.bert import BertEncoder, BertLayer
+from multimodal_rare_disease.models.bert import BertEncoder, BertLayer
 
 pytestmark = pytest.mark.smoke
 
@@ -40,7 +36,7 @@ def _init_layer(pre_ln: bool):
     mask = np.ones((B, T), np.int32)
     mask[1, 5:] = 0
     bias = jnp.asarray((1.0 - mask[:, None, None, :]) * -1e9, jnp.float32)
-    layer = BertLayer(H, HEADS, F, dropout=0.0, fused_ffn=False, pre_ln=pre_ln, dtype=jnp.float32)
+    layer = BertLayer(H, HEADS, F, dropout=0.0, pre_ln=pre_ln, dtype=jnp.float32)
     variables = layer.init(jax.random.key(0), x, bias)
     return layer, variables, x, bias
 
@@ -106,7 +102,7 @@ def test_pre_ln_encoder_tree_is_post_ln_plus_final_ln():
     mask = jnp.ones((B, T), jnp.int32)
     kw = dict(vocab_size=50, hidden_size=H, num_layers=2, num_heads=HEADS,
               intermediate_size=F, max_position_embeddings=T,
-              fused_ffn=False, dtype=jnp.float32)
+              dtype=jnp.float32)
     v_post = BertEncoder(pre_ln=False, **kw).init(jax.random.key(0), ids, mask)
     v_pre = BertEncoder(pre_ln=True, **kw).init(jax.random.key(0), ids, mask)
     post_keys = set(v_post["params"])
@@ -131,7 +127,7 @@ def test_pre_ln_final_ln_applied_before_readout():
     enc = BertEncoder(vocab_size=50, hidden_size=H, num_layers=1,
                       num_heads=HEADS, intermediate_size=F,
                       max_position_embeddings=T, dropout=0.0,
-                      fused_ffn=False, pre_ln=True, dtype=jnp.float32)
+                      pre_ln=True, dtype=jnp.float32)
     v = enc.init(jax.random.key(1), ids, mask)
     out = np.asarray(
         enc.apply(v, ids, mask, train=True)["last_hidden_state"])
@@ -140,8 +136,8 @@ def test_pre_ln_final_ln_applied_before_readout():
 
 
 def test_pre_layernorm_flag_threads_from_config():
-    from multimodal_rare_disease_tpu.config import resolve_config
-    from multimodal_rare_disease_tpu.models.bert import create_text_encoder
+    from multimodal_rare_disease.config import resolve_config
+    from multimodal_rare_disease.models.bert import create_text_encoder
 
     cfg_on = resolve_config("default", text_encoder__pre_layernorm=True)
     cfg_off = resolve_config("default")

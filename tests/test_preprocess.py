@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multimodal_rare_disease_tpu.config import resolve_config
-from multimodal_rare_disease_tpu.ops import (
+from multimodal_rare_disease.config import resolve_config
+from multimodal_rare_disease.ops import (
     IMAGENET_MEAN,
     IMAGENET_STD,
     affine_resample,
@@ -12,7 +12,6 @@ from multimodal_rare_disease_tpu.ops import (
     normalize_images,
     train_preprocess,
 )
-from multimodal_rare_disease_tpu.ops.pallas.image_kernels import fused_normalize_u8
 
 
 def test_normalize_matches_formula():
@@ -23,20 +22,24 @@ def test_normalize_matches_formula():
     np.testing.assert_allclose(out, expect, atol=1e-5)
 
 
-def test_pallas_fused_normalize_matches_xla():
+def test_eval_preprocess_staged_at_target_is_plain_normalize():
+    """A batch staged at image_size skips the resample: the predict path
+    is the elementwise normalize alone, equal to the numpy formula."""
+    cfg = resolve_config()
     rng = np.random.default_rng(1)
     u8 = rng.integers(0, 256, size=(2, 224, 224, 3), dtype=np.uint8)
-    out = np.asarray(fused_normalize_u8(jnp.asarray(u8), dtype=jnp.float32))
-    expect = np.asarray(normalize_images(jnp.asarray(u8)))
-    np.testing.assert_allclose(out, expect, atol=1e-4)
+    out = np.asarray(jax.jit(lambda a: eval_preprocess(a, cfg))(u8))
+    expect = (u8.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+    np.testing.assert_allclose(out, expect, atol=1e-5)
 
 
-def test_pallas_fused_normalize_bf16():
+def test_eval_preprocess_staged_at_target_bf16():
+    cfg = resolve_config()
     rng = np.random.default_rng(2)
     u8 = rng.integers(0, 256, size=(1, 224, 224, 3), dtype=np.uint8)
-    out = fused_normalize_u8(jnp.asarray(u8), dtype=jnp.bfloat16)
-    assert out.dtype == jnp.bfloat16
-    expect = np.asarray(normalize_images(jnp.asarray(u8)))
+    out = eval_preprocess(jnp.asarray(u8), cfg, dtype=jnp.bfloat16)
+    assert out.dtype == jnp.bfloat16 and out.shape == u8.shape
+    expect = (u8.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
     np.testing.assert_allclose(np.asarray(out, np.float32), expect, atol=2e-2)
 
 
@@ -52,13 +55,13 @@ def test_eval_preprocess_deterministic_and_shaped():
     cfg = resolve_config()
     rng = np.random.default_rng(4)
     u8 = jnp.asarray(rng.integers(0, 256, (3, 256, 256, 3), dtype=np.uint8))
-    a = np.asarray(eval_preprocess(u8, cfg, use_pallas=False))
-    b = np.asarray(eval_preprocess(u8, cfg, use_pallas=False))
+    a = np.asarray(eval_preprocess(u8, cfg))
+    b = np.asarray(eval_preprocess(u8, cfg))
     assert a.shape == (3, 224, 224, 3)
     np.testing.assert_array_equal(a, b)
     # center content preserved: uniform image normalizes exactly
     flat = jnp.full((1, 256, 256, 3), 128, jnp.uint8)
-    out = np.asarray(eval_preprocess(flat, cfg, use_pallas=False))
+    out = np.asarray(eval_preprocess(flat, cfg))
     expect = (128 / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
     np.testing.assert_allclose(out[0, 112, 112], expect, atol=1e-3)
 
@@ -78,7 +81,7 @@ def test_train_preprocess_shapes_and_randomness():
 
 
 def test_train_preprocess_jits_and_runs_sharded(mesh8):
-    from multimodal_rare_disease_tpu.parallel import shard_batch
+    from multimodal_rare_disease.parallel import shard_batch
 
     cfg = resolve_config()
     rng = np.random.default_rng(6)
@@ -91,7 +94,7 @@ def test_train_preprocess_jits_and_runs_sharded(mesh8):
 
 
 def test_random_erasing_zeroes_region():
-    from multimodal_rare_disease_tpu.ops.preprocess import random_erasing
+    from multimodal_rare_disease.ops.preprocess import random_erasing
 
     x = jnp.ones((4, 32, 32, 3))
     out = np.asarray(random_erasing(x, jax.random.key(0), prob=1.0))
@@ -102,7 +105,7 @@ def test_random_erasing_zeroes_region():
 
 
 def test_gaussian_blur_and_noise():
-    from multimodal_rare_disease_tpu.ops.preprocess import (
+    from multimodal_rare_disease.ops.preprocess import (
         gaussian_blur,
         gaussian_noise,
     )
@@ -177,7 +180,7 @@ def test_eval_preprocess_matches_pil(mode):
     assert img.shape == (256, 256, 3)
     cfg = resolve_config(overrides={"data.eval_transform": mode})
     ours = np.asarray(
-        eval_preprocess(jnp.asarray(img[None]), cfg, use_pallas=False))[0]
+        eval_preprocess(jnp.asarray(img[None]), cfg))[0]
     ref = _pil_reference(img, mode)
     # PIL rounds the resized image to uint8 (±0.5/255 per pixel, ~0.009
     # after /std); our path stays float throughout.
@@ -190,7 +193,7 @@ def test_eval_preprocess_matches_pil(mode):
 def test_eval_resize_crop_actually_crops():
     # Regression for the round-1 self-cancelling crop_scale formula: a
     # border-only feature must be cropped out by resize_crop geometry.
-    from multimodal_rare_disease_tpu.ops.preprocess import eval_resample_params
+    from multimodal_rare_disease.ops.preprocess import eval_resample_params
 
     scale, shift, fw = eval_resample_params(256, 224, "resize_crop")
     # first output pixel samples strictly inside the image (border cropped)
@@ -203,7 +206,7 @@ def test_eval_resize_crop_actually_crops():
     img[:2, :, :] = 255  # bright top border strip
     cfg = resolve_config(overrides={"data.eval_transform": "resize_crop"})
     out = np.asarray(
-        eval_preprocess(jnp.asarray(img[None]), cfg, use_pallas=False))[0]
+        eval_preprocess(jnp.asarray(img[None]), cfg))[0]
     black = (np.zeros(3, np.float32) - IMAGENET_MEAN) / IMAGENET_STD
     # top row of the output equals normalized black: the strip was cropped
     np.testing.assert_allclose(out[0], np.broadcast_to(black, out[0].shape),
@@ -217,7 +220,7 @@ def test_eval_resize_crop_actually_crops():
 def test_hue_rotate_matches_colorsys():
     import colorsys
 
-    from multimodal_rare_disease_tpu.ops.preprocess import hue_rotate
+    from multimodal_rare_disease.ops.preprocess import hue_rotate
 
     rng = np.random.default_rng(3)
     px = rng.uniform(0, 1, (1, 4, 4, 3)).astype(np.float32)
@@ -232,7 +235,7 @@ def test_hue_rotate_matches_colorsys():
 
 
 def test_hue_rotate_preserves_gray_and_value():
-    from multimodal_rare_disease_tpu.ops.preprocess import hue_rotate
+    from multimodal_rare_disease.ops.preprocess import hue_rotate
 
     gray = np.full((1, 2, 2, 3), 0.5, np.float32)
     out = np.asarray(hue_rotate(jnp.asarray(gray),
@@ -264,7 +267,7 @@ def test_train_preprocess_with_hue():
 # ---------------------------------------------------------------------------
 
 def test_coarse_dropout_zeroes_holes():
-    from multimodal_rare_disease_tpu.ops.preprocess import coarse_dropout
+    from multimodal_rare_disease.ops.preprocess import coarse_dropout
 
     x = jnp.ones((4, 32, 32, 3), jnp.float32)
     out = np.asarray(coarse_dropout(x, jax.random.key(0), prob=1.0))
@@ -276,7 +279,7 @@ def test_coarse_dropout_zeroes_holes():
 
 
 def test_random_perspective_identity_and_warp():
-    from multimodal_rare_disease_tpu.ops.preprocess import (
+    from multimodal_rare_disease.ops.preprocess import (
         _solve_homography,
         perspective_resample,
     )
@@ -295,7 +298,7 @@ def test_random_perspective_identity_and_warp():
 
 
 def test_clahe_increases_contrast_of_flat_image():
-    from multimodal_rare_disease_tpu.ops.preprocess import clahe_batch
+    from multimodal_rare_disease.ops.preprocess import clahe_batch
 
     rng = np.random.default_rng(1)
     # low-contrast image clustered around 0.5
@@ -350,7 +353,7 @@ def _numpy_tiled_clahe(x: np.ndarray, clip_limit: float = 4.0,
 
 
 def test_tiled_clahe_parity_with_numpy_reference():
-    from multimodal_rare_disease_tpu.ops.preprocess import clahe_batch_tiled
+    from multimodal_rare_disease.ops.preprocess import clahe_batch_tiled
 
     rng = np.random.default_rng(7)
     # structured image: gradient + noise so tiles get distinct histograms
@@ -363,7 +366,7 @@ def test_tiled_clahe_parity_with_numpy_reference():
 
 
 def test_tiled_clahe_adapts_locally_where_global_cannot():
-    from multimodal_rare_disease_tpu.ops.preprocess import (
+    from multimodal_rare_disease.ops.preprocess import (
         clahe_batch, clahe_batch_tiled)
 
     rng = np.random.default_rng(3)
@@ -385,7 +388,7 @@ def test_tiled_clahe_adapts_locally_where_global_cannot():
 
 
 def test_elastic_transform_shapes_and_identity_amplitude():
-    from multimodal_rare_disease_tpu.ops.preprocess import elastic_transform
+    from multimodal_rare_disease.ops.preprocess import elastic_transform
 
     rng = np.random.default_rng(2)
     img = rng.uniform(0, 1, (2, 24, 24, 3)).astype(np.float32)

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multimodal_rare_disease_tpu.models.bert import BertEncoder
-from multimodal_rare_disease_tpu.models.quant import (
+from multimodal_rare_disease.models.bert import BertEncoder
+from multimodal_rare_disease.models.quant import (
     MaybeQuantDenseGeneral,
     int8_matmul,
 )
@@ -25,7 +25,7 @@ def test_int8_matmul_accuracy():
 def test_maybe_quant_dense_param_compat():
     """Param tree must be identical to nn.DenseGeneral's so checkpoints
     interchange between the bf16 and int8 paths."""
-    from flax import linen as nn
+    from multimodal_rare_disease import nn
 
     x = jnp.ones((2, 8, 32))
     ref_mod = nn.DenseGeneral((3, 4, 8), axis=-1)
@@ -49,7 +49,7 @@ def test_maybe_quant_dense_param_compat():
 
 
 def test_maybe_quant_dense_matches_dense_when_off():
-    from flax import linen as nn
+    from multimodal_rare_disease import nn
 
     rng = np.random.default_rng(1)
     x = jnp.asarray(rng.normal(size=(2, 8, 32)), jnp.float32)

@@ -2,8 +2,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from multimodal_rare_disease_tpu.ops.rotate import rotate_batch
-from multimodal_rare_disease_tpu.ops.preprocess import (
+from multimodal_rare_disease.ops.rotate import rotate_batch
+from multimodal_rare_disease.ops.preprocess import (
     affine_resample,
     separable_resample,
 )

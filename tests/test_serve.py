@@ -17,11 +17,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from multimodal_rare_disease_tpu.cli.serve import MicroBatcher, make_handler
-from multimodal_rare_disease_tpu.config import resolve_config
-from multimodal_rare_disease_tpu.data.tokenizer import get_tokenizer
-from multimodal_rare_disease_tpu.inference.predictor import MultimodalPredictor
-from multimodal_rare_disease_tpu.models import create_model
+from multimodal_rare_disease.cli.serve import MicroBatcher, make_handler
+from multimodal_rare_disease.config import resolve_config
+from multimodal_rare_disease.data.tokenizer import get_tokenizer
+from multimodal_rare_disease.inference.predictor import MultimodalPredictor
+from multimodal_rare_disease.models import create_model
 
 REF_IMAGES = Path("/root/reference/data/images")
 

@@ -12,7 +12,7 @@ import numpy as np
 import optax
 import pytest
 
-from multimodal_rare_disease_tpu.train.state import TrainState, apply_gradients
+from multimodal_rare_disease.train.state import TrainState, apply_gradients
 
 
 def _mk_state(params, mask, *, optimizer="sgd", wd=0.0, clip=0.0,

@@ -3,7 +3,7 @@ import json
 import numpy as np
 import pytest
 
-from multimodal_rare_disease_tpu.evaluation.stats import (
+from multimodal_rare_disease.evaluation.stats import (
     bootstrap_confidence_interval,
     chi_square_test,
     compare_multimodal_vs_unimodal,

@@ -3,7 +3,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from multimodal_rare_disease_tpu.train.text_pipeline import (
+from multimodal_rare_disease.train.text_pipeline import (
     TextDataPipeline,
     fgdd_text_pipeline,
 )
@@ -47,7 +47,7 @@ def test_text_pipeline_batches_and_split():
 def test_text_pipeline_trains():
     import jax
 
-    from multimodal_rare_disease_tpu.train import Trainer
+    from multimodal_rare_disease.train import Trainer
 
     cfg = small_cfg(**{"classifier.num_classes": 3,
                        "training.batch_size": 8,
@@ -78,7 +78,7 @@ def test_fgdd_pipeline_builds():
 def test_trainer_resume(tmp_path):
     import jax
 
-    from multimodal_rare_disease_tpu.train import Trainer
+    from multimodal_rare_disease.train import Trainer
 
     cfg = small_cfg(**{"classifier.num_classes": 3,
                        "training.batch_size": 8,

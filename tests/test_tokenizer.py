@@ -1,12 +1,12 @@
 import numpy as np
 import pytest
 
-from multimodal_rare_disease_tpu.config import resolve_config
-from multimodal_rare_disease_tpu.data.clinical_text import (
+from multimodal_rare_disease.config import resolve_config
+from multimodal_rare_disease.data.clinical_text import (
     ClinicalTextAugmenter,
     load_clinical_descriptions,
 )
-from multimodal_rare_disease_tpu.data.tokenizer import (
+from multimodal_rare_disease.data.tokenizer import (
     CLS,
     PAD,
     SEP,

@@ -14,9 +14,9 @@ import pytest
 
 from jax.sharding import PartitionSpec as P
 
-from multimodal_rare_disease_tpu.config import resolve_config
-from multimodal_rare_disease_tpu.parallel.mesh import batch_sharding, create_mesh
-from multimodal_rare_disease_tpu.parallel.tp import tp_spec
+from multimodal_rare_disease.config import resolve_config
+from multimodal_rare_disease.parallel.mesh import batch_sharding, create_mesh
+from multimodal_rare_disease.parallel.tp import tp_spec
 
 
 def test_tp_spec_rules():
@@ -83,7 +83,7 @@ def _small_cfg(batch_size, **extra):
 
 
 def _batch(cfg, rng):
-    from multimodal_rare_disease_tpu.train.pipeline import STAGING_SIZE
+    from multimodal_rare_disease.train.pipeline import STAGING_SIZE
 
     B = cfg.training.batch_size
     T = cfg.data.max_text_length
@@ -99,7 +99,7 @@ def _batch(cfg, rng):
 
 
 def _run_steps(mesh_shape, n_steps=2):
-    from multimodal_rare_disease_tpu.train import Trainer
+    from multimodal_rare_disease.train import Trainer
 
     # SGD for the cross-mesh comparison: Adam's step-1 update is
     # sign(g) elementwise, so the f32 reduction-order noise of the TP
@@ -168,8 +168,8 @@ def test_tp_matches_data_parallel():
 def test_tp_checkpoint_roundtrip(tmp_path):
     """A TP-sharded state must save (host gather) and load back equal —
     a model trained on a (d, m) mesh serves anywhere."""
-    from multimodal_rare_disease_tpu.train import Trainer
-    from multimodal_rare_disease_tpu.utils.checkpoint import (
+    from multimodal_rare_disease.train import Trainer
+    from multimodal_rare_disease.utils.checkpoint import (
         load_checkpoint,
         save_checkpoint,
     )
@@ -193,7 +193,7 @@ def test_tp_checkpoint_roundtrip(tmp_path):
 @pytest.mark.slow
 def test_tp_eval_step():
     """The jitted eval step runs on the TP mesh and counts every sample."""
-    from multimodal_rare_disease_tpu.train import Trainer
+    from multimodal_rare_disease.train import Trainer
 
     cfg = _small_cfg(batch_size=8)
     mesh = create_mesh(cfg, data_axis=2, model_axis=4)

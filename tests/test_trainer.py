@@ -11,12 +11,12 @@ import pytest
 
 pytestmark = pytest.mark.slow  # one-epoch trainings: minutes on CPU
 
-from multimodal_rare_disease_tpu.config import resolve_config
-from multimodal_rare_disease_tpu.train import Trainer
-from multimodal_rare_disease_tpu.train.freeze import count_params, trainable_mask
-from multimodal_rare_disease_tpu.train.pipeline import DataPipeline
-from multimodal_rare_disease_tpu.train.schedules import EarlyStopping, make_schedule
-from multimodal_rare_disease_tpu.train.trainer import weighted_ce_loss
+from multimodal_rare_disease.config import resolve_config
+from multimodal_rare_disease.train import Trainer
+from multimodal_rare_disease.train.freeze import count_params, trainable_mask
+from multimodal_rare_disease.train.pipeline import DataPipeline
+from multimodal_rare_disease.train.schedules import EarlyStopping, make_schedule
+from multimodal_rare_disease.train.trainer import weighted_ce_loss
 
 REF_IMAGES = Path("/root/reference/data/images")
 
@@ -110,7 +110,7 @@ def test_freeze_mask_multimodal():
     cfg = small_cfg(**{"cnn_encoder.freeze_stages": 3,
                        "text_encoder.freeze_layers": 1,
                        "text_encoder.freeze_embeddings": True})
-    from multimodal_rare_disease_tpu.models import create_model
+    from multimodal_rare_disease.models import create_model
 
     model = create_model(cfg, mode="multimodal", dtype=jnp.float32)
     variables = model.init(jax.random.key(0), jnp.zeros((1, 64, 64, 3)),
@@ -145,8 +145,8 @@ def test_trainer_one_epoch_real_corpus(mode, tmp_path):
     assert np.isfinite(result["history"]["val_loss"][0])
     assert result["skipped_steps"] == 0
     # checkpoints written
-    assert (tmp_path / f"{mode}_best" / "arrays").exists()
-    assert (tmp_path / f"{mode}_last" / "arrays").exists()
+    assert (tmp_path / f"{mode}_best" / "arrays.npz").exists()
+    assert (tmp_path / f"{mode}_last" / "arrays.npz").exists()
 
 
 @pytest.mark.skipif(not REF_IMAGES.is_dir(), reason="reference corpus absent")
@@ -189,7 +189,7 @@ def test_streaming_fallback_with_prefetch(tmp_path):
     result = trainer.train(num_epochs=1)
     assert np.isfinite(result["history"]["train_loss"][0])
     assert np.isfinite(result["history"]["val_loss"][0])
-    assert (tmp_path / "image_only_best" / "arrays").exists()
+    assert (tmp_path / "image_only_best" / "arrays.npz").exists()
 
 
 def test_estimate_train_hbm_bytes_components():
@@ -197,7 +197,7 @@ def test_estimate_train_hbm_bytes_components():
     pass straight through, params count 4x (master + mu + nu + grads)."""
     from types import SimpleNamespace
 
-    from multimodal_rare_disease_tpu.train.trainer import (
+    from multimodal_rare_disease.train.trainer import (
         estimate_train_hbm_bytes,
     )
 
@@ -216,10 +216,8 @@ def test_estimate_train_hbm_bytes_components():
 def test_hbm_preflight_guard_falls_back(tmp_path, monkeypatch):
     """A corpus within device_corpus_budget_gb must STILL fall back to
     streaming when corpus + params + optimizer + activations exceed the
-    device memory bound — round 4's resident run hard-crashed the TPU
-    worker instead (artifacts/round4/streaming.json). The guard refuses
-    BEFORE any upload."""
-    import multimodal_rare_disease_tpu.train.trainer as trainer_mod
+    device memory bound. The guard refuses BEFORE any upload."""
+    import multimodal_rare_disease.train.trainer as trainer_mod
 
     monkeypatch.setattr(trainer_mod, "device_memory_limit_bytes",
                         lambda device=None: 1e6)  # 1 MB "device"
@@ -237,7 +235,7 @@ def test_prefetched_yields_all_batches_in_order():
     cfg = small_cfg()
     trainer = Trainer.__new__(Trainer)  # no model build needed
     trainer.cfg = cfg
-    from multimodal_rare_disease_tpu.parallel.mesh import create_mesh
+    from multimodal_rare_disease.parallel.mesh import create_mesh
     trainer.mesh = create_mesh()
     batches = [{"labels": np.full((8,), i, np.int32)} for i in range(5)]
     out = list(trainer._prefetched(iter(batches)))
@@ -245,3 +243,4 @@ def test_prefetched_yields_all_batches_in_order():
     for i, b in enumerate(out):
         assert int(np.asarray(b["labels"])[0]) == i
     assert list(trainer._prefetched(iter([]))) == []
+
